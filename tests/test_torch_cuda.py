@@ -1,0 +1,105 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on the
+card.  These tests need an NVIDIA GPU and skip without one; this file
+imports no JAX, so it runs where only PyTorch is installed:
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.dg.basis import diff_matrix, lgl_nodes_weights
+from repro_torch.dg.solver import gaussian_pulse, make_two_tree_solver
+from repro_torch.kernels import ref
+from repro_torch.kernels.dg_flux import dg_flux
+from repro_torch.kernels.dg_volume import dg_volume
+
+pytestmark = pytest.mark.cuda
+
+TDT = {"float32": torch.float32, "float64": torch.float64}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tol(dt):
+    return dict(rtol=5e-4, atol=5e-4) if dt == "float32" else dict(rtol=1e-11, atol=1e-11)
+
+
+@pytest.mark.parametrize("K,order", [(16, 7), (24, 3), (7, 5), (1, 2)])
+@pytest.mark.parametrize("dt", ["float32", "float64"])
+def test_dg_volume_kernel(cuda, K, order, dt):
+    rng = np.random.default_rng(K + order)
+    M = order + 1
+    x, _ = lgl_nodes_weights(order)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=TDT[dt], device=cuda)
+    args = (t(rng.standard_normal((K, 9, M, M, M))), t(diff_matrix(x)), (2.0, 3.0, 4.0),
+            t(rng.uniform(0.5, 2, K)), t(rng.uniform(0.5, 2, K)), t(rng.uniform(0, 2, K)))
+    n0 = dg_volume.launches
+    got = dg_volume(*args)
+    assert dg_volume.launches == n0 + 1
+    torch.testing.assert_close(got, ref.dg_volume_ref(*args), **_tol(dt))
+
+
+@pytest.mark.parametrize("dt", ["float32", "float64"])
+def test_dg_volume_kernel_at_the_dg_paper_metric(cuda, dt):
+    """The solver's own D, metrics (2/h = 32) and materials; the error is
+    held against the sum of the magnitudes of the terms each output adds
+    up, which large cancelling derivatives leave far above the result."""
+    s = make_two_tree_solver(grid=(32, 16, 16), order=7, device=cuda)
+    sel = torch.cat([torch.arange(0, 64), torch.arange(s.mesh.K - 64, s.mesh.K)]).to(cuda)
+    rng = np.random.default_rng(11)
+    q = torch.as_tensor(rng.standard_normal((128, 9, 8, 8, 8)), dtype=TDT[dt], device=cuda)
+    args = (q, s.D.to(q.dtype), s.metrics, s.rho_t[sel].to(q.dtype), s.lam_t[sel].to(q.dtype),
+            s.mu_t[sel].to(q.dtype))
+    err = (dg_volume(*args) - ref.dg_volume_ref(*args)).abs()
+    assert bool((err <= _tol(dt)["atol"] * (1 + ref.dg_volume_term_scale(*args))).all())
+
+
+@pytest.mark.parametrize("F,M", [(10, 8), (200, 4), (128, 8)])
+@pytest.mark.parametrize("dt", ["float32", "float64"])
+@pytest.mark.parametrize("axis,sign", [(0, 1.0), (1, -1.0), (2, 1.0)])
+def test_dg_flux_kernel(cuda, F, M, dt, axis, sign):
+    rng = np.random.default_rng(F + M + axis)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=TDT[dt], device=cuda)
+    mats = np.abs(rng.standard_normal((F, 8))) + 0.5
+    mats[: F // 3, 3] = 0.0
+    args = (t(rng.standard_normal((F, 6, M, M))), t(rng.standard_normal((F, 3, M, M))),
+            t(rng.standard_normal((F, 6, M, M))), t(rng.standard_normal((F, 3, M, M))),
+            t(mats), axis, sign)
+    n0 = dg_flux.launches
+    (FE, Fv), (FE_r, Fv_r) = dg_flux(*args), ref.dg_flux_ref(*args)
+    assert dg_flux.launches == n0 + 1
+    torch.testing.assert_close(FE, FE_r, **_tol(dt))
+    torch.testing.assert_close(Fv, Fv_r, **_tol(dt))
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros((2, 9, 3, 3, 3), dtype=torch.float64, device=cuda)
+    D = torch.zeros((3, 3), dtype=torch.float64, device=cuda)
+    one = torch.ones(2, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        dg_flux(q[:, :6, 0], q[:, 6:, 0].contiguous(), q[:, :6, 0].contiguous(),
+                q[:, 6:, 0].contiguous(), torch.ones((2, 8), dtype=torch.float64, device=cuda),
+                0, 1.0)
+    with pytest.raises(ValueError, match="float32"):
+        dg_volume(q, D.float(), (1.0, 1.0, 1.0), one, one, one)
+    with pytest.raises(ValueError, match="device"):
+        dg_volume(q, D.cpu(), (1.0, 1.0, 1.0), one, one, one)
+
+
+def test_flat_solver_kernels_match_plain_version(cuda):
+    s = make_two_tree_solver(grid=(8, 4, 4), order=3, device=cuda)
+    plain = make_two_tree_solver(grid=(8, 4, 4), order=3, device=cuda, kernel_impl="torch")
+    q0 = gaussian_pulse(s, center=(1.0, 0.5, 0.5), device=cuda)
+    n0 = dg_volume.launches
+    a, b = s.run(q0, 5), plain.run(q0, 5)
+    assert dg_volume.launches == n0 + 25
+    torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
