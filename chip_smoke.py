@@ -17,7 +17,22 @@ Phases (any failure raises; the script then exits non-zero):
              versions; they must agree and energy must not grow;
 5. nested  — ``NestedPartitionExecutor`` (4 partitions) + ``BlockedDGEngine``:
              ``calibrate`` then ``run(q0, 20, observe=True)``, which must
-             reproduce phase 4 and go through both kernels.
+             reproduce phase 4 and go through both kernels;
+6. flash   — ``flash_attention`` against its plain version at the serving
+             slice's shapes (B 2, Hq 28, Hkv 4, S 2048, D 128, causal) in
+             bf16 and float32, over the reference kernel test's sweep and at
+             head dims 80 and 160; timed with CUDA events beside its bound,
+             the plain version and ``scaled_dot_product_attention`` (timed
+             as a yardstick only: the port never calls it);
+7. serve   — ``qwen2-7b`` at its published widths and full depth in bf16,
+             weights from seed 0, through the one-shot serve CLI's
+             ``run_oneshot``: batch 4, prompt 2048, gen 32, 2 calibrated
+             partitions.  Every prefill must launch the flash kernel once
+             per layer and the tokens must lie in the logical vocab.  The
+             kernel's last-position prefill logits must match the plain
+             version's in float32 (same weights, built in float32) to 5e-4
+             of max|logits|, and in bf16 to within twice the bf16 noise,
+             max|plain bf16 - plain float32|.
 
 Prints one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -43,14 +58,25 @@ from repro_torch.dg.solver import gaussian_pulse, make_two_tree_solver  # noqa: 
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.dg_flux import dg_flux  # noqa: E402
 from repro_torch.kernels.dg_volume import dg_volume  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.runtime.executor import BlockedDGEngine, NestedPartitionExecutor  # noqa: E402
+from repro_torch.runtime.serving import build_lm, decode_batch  # noqa: E402
 
 SEED = 0
 STEPS = 20
 EXTENT = (2.0, 1.0, 1.0)
 TOL = {torch.float64: 1e-11, torch.float32: 5e-4}  # tests/test_kernels.py:_tol
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}  # non-tensor-core peaks
+PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12,  # non-tensor-core peaks
+              torch.bfloat16: 989e12}  # dense tensor-core bf16
+FLASH_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}  # tests/test_kernels.py:test_flash_kernel
+LOGITS_F32_TOL = FLASH_TOL[torch.float32]  # of max|logits|, kernel vs plain float32 prefill
+BF16_NOISE_MULT = 2.0  # bf16 kernel vs plain prefill, in units of the bf16-vs-float32 gap
+# the serving slice: qwen2-7b's attention on a sub-batch of 2 rows of 2048
+SLICE = dict(B=2, Hq=28, Hkv=4, S=2048, D=128)
+SERVE_ARGS = ["--arch", "qwen2-7b", "--batch", "4", "--prompt-len", "2048", "--gen", "32",
+              "--partitions", "2", "--seed", str(SEED), "--dtype", "bfloat16", "--device", "cuda"]
 TIMING_REPS = 20
 
 
@@ -178,13 +204,207 @@ def phase_kernels(gen: torch.Generator, solver) -> dict:
     return out
 
 
+def flash_inputs(gen, dtype, B, Hq, Hkv, S, D):
+    dev = dict(device="cuda", dtype=torch.float32)
+    return tuple(torch.randn(shape, generator=gen, **dev).to(dtype)
+                 for shape in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+
+
+def flash_bound(q, k, causal: bool, window) -> tuple:
+    """Least time for one call: the flops of the (q, k) pairs this call's
+    mask keeps (2 D for q.k and 2 D for p.v each) at the type's peak, or
+    q, k, v and o moved once at the HBM rate."""
+    B, Hq, Sq, D = q.shape
+    qpos = torch.arange(Sq, device="cuda")[:, None]
+    kpos = torch.arange(k.shape[2], device="cuda")[None, :]
+    keep = torch.ones((Sq, k.shape[2]), dtype=torch.bool, device="cuda")
+    if causal:
+        keep &= kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    n_flops = 4 * D * int(keep.sum()) * B * Hq
+    n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    return bound_ms(n_bytes, n_flops, q.dtype)
+
+
+def phase_flash(gen: torch.Generator) -> dict:
+    """Phase 6: the flash kernel against its plain version at the serving
+    slice's shapes, over the reference kernel test's sweep, and at head dims
+    80 and 160 (ragged lengths, GQA 2:1)."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = flash_inputs(gen, dtype, **SLICE)
+        got = flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = check_close(f"flash slice {dtype}", got.float(), want.float(), FLASH_TOL[dtype])
+        del got, want
+        b, by = flash_bound(q, k, True, None)
+        out[dtype] = dict(
+            max_abs_err=err, ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
+            plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True)),
+            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)),
+            bound_ms=b, bound_by=by)
+        del q, k, v
+        torch.cuda.empty_cache()
+    sweep = [(2, 2, 2, S, D, mode) for S, D in ((256, 64), (192, 32), (128, 128))
+             for mode in ("causal", "encoder", "swa")]
+    sweep += [(2, 4, 2, 200, 80, "causal"), (2, 4, 2, 200, 160, "causal"),
+              (1, 4, 2, 96, 160, "swa")]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for B, Hq, Hkv, S, D, mode in sweep:
+        kw = dict(causal=(mode != "encoder"), window=(S // 4 if mode == "swa" else None))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(gen, dtype, B, Hq, Hkv, S, D)
+            got = flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            worst[dtype] = max(worst[dtype], check_close(
+                f"flash sweep S={S} D={D} {mode} {dtype}", got.float(), want.float(),
+                FLASH_TOL[dtype]))
+    for dtype, r in out.items():
+        log(f"[flash] slice {SLICE} causal {str(dtype).split('.')[-1]}: "
+            f"max_abs_err={r['max_abs_err']:.3e} (tol {FLASH_TOL[dtype]:g}) "
+            f"kernel={r['ms']:.4f}ms plain={r['plain_ms']:.4f}ms sdpa={r['library_ms']:.4f}ms "
+            f"bound={r['bound_ms']:.4f}ms ({r['bound_by']})")
+    log(f"[flash] sweep of {len(sweep)} shapes x 2 dtypes: max_abs_err "
+        f"f32 {worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}")
+    return out
+
+
+def event_ms(fn) -> float:
+    """Milliseconds of one ``fn()`` between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_serve(gen: torch.Generator) -> dict:
+    """Phase 7: qwen2-7b at full width through the one-shot serve CLI."""
+    t0 = time.perf_counter()
+    cfg, lm = build_lm("qwen2-7b", smoke=False, seed=SEED, device="cuda", dtype="bfloat16")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    log(f"[serve] built {cfg.arch_id}: L={cfg.n_layers} d={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} hd={cfg.head_dim_} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"{cfg.dtype}, {n_params / 1e9:.3f} G params, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+        f"{time.perf_counter() - t0:.1f}s")
+    published = dict(n_layers=28, d_model=3584, n_heads=28, n_kv_heads=4, head_dim=128,
+                     d_ff=18944, vocab_size=152064)
+    if any(getattr(cfg, f) != v for f, v in published.items()) or lm.plan.padded_q != 28:
+        raise AssertionError(f"not the published qwen2-7b widths: {cfg}")
+    args = serve_cli.parser().parse_args(SERVE_ARGS)
+
+    reset_counts()
+    res = serve_cli.run_oneshot(args, built=(cfg, lm))
+    launched = counts()
+    kernels, ex = res["kernels"], res["executor"]
+    n_prefills = kernels.prefills
+    if launched["flash_attention"] != cfg.n_layers * n_prefills or n_prefills == 0:
+        raise AssertionError(f"flash launches {launched['flash_attention']} != "
+                             f"{cfg.n_layers} x {n_prefills} prefills")
+    if res["serve_prefills"] != len([c for c in ex.counts if c > 0]):
+        raise AssertionError(f"serve pass prefills {res['serve_prefills']} != partitions")
+    gen_tok = res["gen"]
+    in_vocab = bool(((gen_tok >= 0) & (gen_tok < cfg.vocab_size)).all())
+    if gen_tok.shape != (args.batch, args.gen) or not in_vocab:
+        raise AssertionError("tokens outside the logical vocab")
+
+    # the kernel's last-position prefill logits against the plain version's on
+    # the same rows; held in check_logits below, against the f32 model
+    prompts = res["prompts"]
+    offs = ex.offsets
+    rows = torch.as_tensor(prompts[offs[0]:offs[1]], dtype=torch.long, device=lm.device)
+    auto_bf16 = lm.prefill(rows)[0].float()
+    plain_bf16 = lm.with_impl("torch").prefill(rows)[0].float()
+
+    # the flash kernel's share of one sub-batch prefill (CUDA events)
+    prefill_ms = statistics.median(event_ms(lambda: lm.prefill(rows)) for _ in range(3))
+    q, k, v = flash_inputs(gen, torch.bfloat16, len(rows), cfg.n_heads, cfg.n_kv_heads,
+                           prompts.shape[1], cfg.head_dim_)
+    flash_ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    del q, k, v
+
+    # the same rows as one batch: how many greedy tokens agree (printed, not held:
+    # cuBLAS may choose other algorithms at other batch sizes)
+    whole, _, _ = decode_batch(kernels, prompts, args.gen)
+    agree = int((whole == gen_tok).sum())
+    out = dict(prefill_ms=res["prefill_s"] * 1e3, decode_ms_per_step=res["decode_ms_per_step"],
+               tok_per_s=res["tok_per_s"], counts=ex.counts.tolist(), round=ex.round,
+               launches=launched, prefills=n_prefills, sub_batch_prefill_ms=prefill_ms,
+               flash_ms_per_layer=flash_ms,
+               flash_share=cfg.n_layers * flash_ms / prefill_ms, agree=agree,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[serve] {cfg.arch_id} {cfg.dtype} batch {args.batch} prompt {args.prompt_len} "
+        f"gen {args.gen}, {args.partitions} partitions: "
+        f"prefill {out['prefill_ms']:.1f} ms (both sub-batches), "
+        f"decode {out['decode_ms_per_step']:.2f} ms/step, {out['tok_per_s']:.1f} tok/s, "
+        f"calibrated counts {out['counts']} (round {out['round']}), launches {launched} over "
+        f"{n_prefills} prefills (calibration, warm-up and serve)")
+    log(f"[serve] one prefill of {len(rows)} rows: {prefill_ms:.2f} ms; flash kernel "
+        f"{flash_ms:.3f} ms x {cfg.n_layers} layers = {out['flash_share'] * 100:.1f}% of it; "
+        f"greedy tokens equal to one batch of the same rows: {agree}/{whole.size}; "
+        f"peak {out['peak_gb']:.1f} GB")
+    del kernels, res, lm
+    torch.cuda.empty_cache()
+    out.update(check_logits(rows, auto_bf16, plain_bf16))
+    return out
+
+
+def check_logits(rows: torch.Tensor, auto_bf16: torch.Tensor, plain_bf16: torch.Tensor) -> dict:
+    """The flash kernel against its plain version through the whole model.
+
+    bf16 rounding alone moves the logits by more than a kernel fault of a few
+    ulps would, so the kernel is held twice, on the same rows and the same
+    weights (seed 0, built in float32; the bf16 model is their cast):
+
+    * in float32, kernel vs plain prefill within ``LOGITS_F32_TOL`` of
+      max|logits|, the float32 flash tolerance;
+    * in bf16, kernel vs plain within ``BF16_NOISE_MULT`` = 2 times the
+      measured bf16 noise N = max|plain bf16 - plain float32|.  If the
+      kernel's bf16 logits are no further than N from float32, as the plain
+      version's are, the triangle inequality puts the two within 2 N."""
+    t0 = time.perf_counter()
+    cfg, lm = build_lm("qwen2-7b", smoke=False, seed=SEED, device="cuda", dtype="float32")
+    auto_f32 = lm.prefill(rows)[0]
+    plain_f32 = lm.with_impl("torch").prefill(rows)[0]
+    scale = float(plain_f32.abs().max())
+    err_f32 = float((auto_f32 - plain_f32).abs().max())
+    err_bf16 = float((auto_bf16 - plain_bf16).abs().max())
+    noise = float((plain_bf16 - plain_f32).abs().max())
+    log(f"[serve] last-position prefill logits of {len(rows)} rows ({cfg.dtype} model built in "
+        f"{time.perf_counter() - t0:.1f}s), max|logits| {scale:.4e}: float32 kernel vs plain "
+        f"{err_f32:.4e} ({err_f32 / scale:.3e} of max, tol {LOGITS_F32_TOL:g}); bf16 kernel vs "
+        f"plain {err_bf16:.4e}, bf16 noise |plain bf16 - plain float32| {noise:.4e} "
+        f"({noise / scale:.3e} of max), kernel/noise {err_bf16 / noise:.3f} "
+        f"(tol {BF16_NOISE_MULT:g})")
+    if not np.isfinite([scale, err_f32]).all() or err_f32 > LOGITS_F32_TOL * scale:
+        raise AssertionError(f"float32 prefill logits: {err_f32:.3e} > "
+                             f"{LOGITS_F32_TOL:g} * {scale:.3e}")
+    if not np.isfinite([noise, err_bf16]).all() or err_bf16 > BF16_NOISE_MULT * noise:
+        raise AssertionError(f"bf16 prefill logits: {err_bf16:.3e} > "
+                             f"{BF16_NOISE_MULT:g} * bf16 noise {noise:.3e}")
+    del lm
+    torch.cuda.empty_cache()
+    return dict(logit_scale=scale, logit_err_f32=err_f32, logit_err_bf16=err_bf16,
+                logit_noise_bf16=noise)
+
+
 def reset_counts() -> None:
     dg_volume.launches = 0
     dg_flux.launches = 0
+    flash_attention.launches = 0
 
 
 def counts() -> dict:
-    return {"dg_volume": dg_volume.launches, "dg_flux": dg_flux.launches}
+    return {"dg_volume": dg_volume.launches, "dg_flux": dg_flux.launches,
+            "flash_attention": flash_attention.launches}
 
 
 def timed_run(fn):
@@ -246,7 +466,7 @@ def main() -> int:
         raise AssertionError(f"flat kernels vs plain: {diff:.3e} > 1e-10 * {qmax:.3e}")
     if not (np.isfinite(e1) and e1 <= e0 * 1.0001):
         raise AssertionError(f"energy grew: {e0} -> {e1}")
-    if min(flat_counts.values()) <= 0:
+    if min(flat_counts["dg_volume"], flat_counts["dg_flux"]) <= 0:
         raise AssertionError(f"the flat run launched no kernel: {flat_counts}")
     del q_plain
 
@@ -274,6 +494,15 @@ def main() -> int:
     if nested_counts["dg_volume"] < 5 * STEPS or nested_counts["dg_flux"] <= 0:
         raise AssertionError(f"the nested run did not go through the kernels: {nested_counts}")
 
+    del q_nested, q_flat, eng, solver, plain_solver
+    torch.cuda.empty_cache()
+
+    # 6. the flash kernel vs its plain version
+    flash = phase_flash(gen)
+
+    # 7. qwen2-7b one-shot serving at full width
+    serve = phase_serve(gen)
+
     # the kernels line, then the card, then the result
     sources = {"dg_volume": ("src/repro_torch/csrc/dg_volume.cu", "src/repro/kernels/dg_volume.py:129"),
                "dg_flux": ("src/repro_torch/csrc/dg_flux.cu", "src/repro/kernels/dg_flux.py:98")}
@@ -287,6 +516,14 @@ def main() -> int:
             **main_row, "kernel_ms": main_row["ms"], "library_ms": None,
             "float32": per[torch.float32],
         })
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:91",
+        "launches": serve["launches"]["flash_attention"], "dtype": "bfloat16",
+        "shape": SLICE, **flash[torch.bfloat16], "kernel_ms": flash[torch.bfloat16]["ms"],
+        "float32": flash[torch.float32],
+    })
     log(json.dumps({"kernels": rows}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     log(smi)

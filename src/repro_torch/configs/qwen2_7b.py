@@ -1,0 +1,20 @@
+"""Qwen2-7B: dense GQA decoder with QKV bias.  [arXiv:2407.10671; hf]"""
+
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.zoo import register
+
+CONFIG = register(ModelConfig(
+    arch_id="qwen2-7b",
+    family="dense",
+    n_layers=28,
+    d_model=3584,
+    n_heads=28,
+    n_kv_heads=4,
+    d_ff=18944,
+    vocab_size=152064,
+    head_dim=128,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    norm_eps=1e-6,
+    tp_size=16,
+))

@@ -10,10 +10,17 @@ permuted:
   materials (rho, lam, mu), order and dtype become the port's ``DGSolver``;
 * ``field_from`` — a field ``q`` becomes a tensor on a given device;
 * ``plan_from`` — an executor's ``weights``/``counts`` become a ``Plan`` the
-  port's ``NestedPartitionExecutor.apply`` takes.
+  port's ``NestedPartitionExecutor.apply`` takes;
+* ``model_config_from`` — an LM config becomes the port's ``ModelConfig``;
+* ``lm_params_from`` — an LM's nested parameter dict (layers stacked on axis
+  0, float32 masters) becomes the port's ``LM`` state dict: matrices,
+  embeddings and biases in the activation dtype, norm scales in float32.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict
 
 import numpy as np
 import torch
@@ -21,6 +28,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dg.mesh import BrickMesh
 from repro_torch.dg.solver import DGSolver, torch_dtype
+from repro_torch.models.common import ModelConfig
 from repro_torch.runtime.executor import Plan
 
 
@@ -65,3 +73,37 @@ def plan_from(executor) -> Plan:
     w = np.asarray(executor.weights, dtype=np.float64)
     counts = np.asarray(executor.counts, dtype=np.int64).copy()
     return Plan(weights=w / w.sum(), counts=counts, round=int(getattr(executor, "round", 0)))
+
+
+def model_config_from(cfg, kernel_impl: str = "auto") -> ModelConfig:
+    """The port's ``ModelConfig`` with every field of a reference config, and
+    the port's ``kernel_impl``."""
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)}
+    kw["global_layers"] = tuple(kw["global_layers"])
+    kw["kernel_impl"] = kernel_impl
+    return ModelConfig(**kw)
+
+
+def lm_params_from(params, cfg: ModelConfig, device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The port's ``LM`` state dict from a reference LM's parameters (dense
+    families).  Every leaf is read with ``np.asarray``."""
+    dev = resolve_device(device)
+    adt = cfg.activation_dtype
+
+    def mat(a) -> torch.Tensor:
+        return torch.as_tensor(np.array(np.asarray(a), dtype=np.float32), device=dev).to(adt)
+
+    def norm(a) -> torch.Tensor:
+        return torch.as_tensor(np.array(np.asarray(a), dtype=np.float32), device=dev)
+
+    sd = {"embed": mat(params["embed"]), "final_ln": norm(params["final_ln"])}
+    if "lm_head" in params:
+        sd["lm_head"] = mat(params["lm_head"])
+    layers = params["layers"]  # every leaf stacked on a leading layer axis
+    stacked = {f"attn.{n}": np.asarray(a) for n, a in layers["attn"].items()}
+    stacked.update({f"mlp.{n}": np.asarray(a) for n, a in layers["mlp"].items()})
+    stacked["ln2"] = np.asarray(layers["ln2"])
+    for i in range(cfg.n_layers):
+        for name, a in stacked.items():
+            sd[f"layers.{i}.{name}"] = (norm if name in ("attn.ln", "ln2") else mat)(a[i])
+    return sd

@@ -11,12 +11,14 @@ FLOAT_DTYPES = (torch.float32, torch.float64)
 
 
 def check_operands(what: str, tensors: Dict[str, torch.Tensor],
-                   shapes: Dict[str, Sequence[int]]) -> None:
+                   shapes: Dict[str, Sequence[int]],
+                   dtypes: Sequence[torch.dtype] = FLOAT_DTYPES) -> None:
     """Raise ``ValueError`` unless every tensor lies on the same CUDA device,
-    has the same float32/float64 dtype, the given shape and is contiguous."""
+    has the same dtype (one of ``dtypes``), the given shape and is
+    contiguous."""
     first = next(iter(tensors.values()))
-    if first.dtype not in FLOAT_DTYPES:
-        raise ValueError(f"{what}: dtype must be float32 or float64, got {first.dtype}")
+    if first.dtype not in dtypes:
+        raise ValueError(f"{what}: dtype must be one of {tuple(dtypes)}, got {first.dtype}")
     for name, t in tensors.items():
         if t.dtype != first.dtype:
             raise ValueError(f"{what}: {name} is {t.dtype}, expected {first.dtype}")

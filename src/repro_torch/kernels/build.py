@@ -23,7 +23,7 @@ from typing import Optional
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("dg_volume.cu", "dg_flux.cu")
+SOURCES = ("dg_volume.cu", "dg_flux.cu", "flash_attention.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -35,6 +35,9 @@ _SIGNATURES = {
     # Sm, vm, Sp, vp, mats, FE, Fv, F, M*M, axis, sign, stream
     "dg_flux_f64": [_P] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_double, _P],
     "dg_flux_f32": [_P] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_double, _P],
+    # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, scale, causal, window, q_offset, stream
+    "flash_attention_bf16": [_P] * 4 + [ctypes.c_int] * 6 + [ctypes.c_double] + [ctypes.c_int] * 3 + [_P],
+    "flash_attention_f32": [_P] * 4 + [ctypes.c_int] * 6 + [ctypes.c_double] + [ctypes.c_int] * 3 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -13,11 +13,14 @@ to the plain version.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.dg_flux import dg_flux as dg_flux_kernel
 from repro_torch.kernels.dg_volume import dg_volume as dg_volume_kernel
+from repro_torch.kernels.flash_attention import flash_attention as flash_attention_kernel
 
 IMPLS = ("auto", "torch", "cuda")
 
@@ -43,3 +46,15 @@ def dg_flux(Sm, vm, Sp, vp, mats, axis, sign, impl: str = "auto"):
     if impl == "torch":
         return ref.dg_flux_ref(Sm, vm, Sp, vp, mats, axis, sign)
     return dg_flux_kernel(Sm, vm, Sp, vp, mats, axis, sign)
+
+
+def flash_attention_op(
+    q, k, v, *, causal: bool = True, window: Optional[int] = None,
+    scale: Optional[float] = None, q_offset: int = 0, impl: str = "auto",
+):
+    check_impl(impl, q)
+    if impl == "torch":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale,
+                                       q_offset=q_offset)
+    return flash_attention_kernel(q, k, v, causal=causal, window=window, scale=scale,
+                                  q_offset=q_offset)

@@ -14,13 +14,17 @@ block's own elements, *correction* runs the face flux on the assembled
 block and folds it in.  The partition is a reordering, never an
 approximation: blocked and flat runs agree to rounding.
 
+Without ``grid_dims`` the executor splits a plain run of items (the rows
+of a serving batch) into contiguous chunks; ``plan_from_report`` solves the
+split from a phase-resolved ``CalibrationReport`` (serving calibrates
+prefill as the boundary phase and decode as the interior phase).
+
 Not in this slice: the persistent plan cache (``plan_cache_dir`` raises
-``NotImplementedError``) with its plan keys; the overlap-aware solve from a
-phase report (``plan_from_report``), predicted times and the
-``calibrate(measure_fn)`` loop, which wait for the cost model; modeled time
-models, accelerator counts, ejection/readmission and state snapshots (the
-simulated cluster and the fault-tolerance layer); the step driver ``drive``
-(the LM launchers).
+``NotImplementedError``) with its plan keys; predicted times per plan and
+the ``calibrate(measure_fn)`` loop, which wait for the cost model; modeled
+time models, accelerator counts, ejection/readmission and state snapshots
+(the simulated cluster and the fault-tolerance layer); the step driver
+``drive`` (the LM training launcher).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.load_balance import rebalance_from_measurements
+from repro_torch.core.load_balance import rebalance_from_measurements, solve_multiway
 from repro_torch.core.partition import NestedPartition, build_nested_partition, splice
 from repro_torch.device import synchronize
 from repro_torch.dg.operators import surface_rhs, volume_rhs_impl
@@ -94,9 +98,12 @@ class Plan:
 
 class NestedPartitionExecutor:
     """Closes the paper's calibration loop at runtime (numpy): ``observe`` is
-    fed per-partition step seconds (a ``BlockedDGEngine`` calibration or an
-    observed chunk), ``rebalance`` turns them into a new bucketed split, and
-    the resplice hooks rebuild the engines' tables.
+    fed per-partition step seconds (a ``BlockedDGEngine`` calibration, an
+    observed chunk or a serving calibration), ``rebalance`` or
+    ``plan_from_report`` turns them into a new bucketed split, and the
+    resplice hooks rebuild the engines' tables.  With ``grid_dims`` the split
+    is a nested partition of the element grid; without, contiguous chunks of
+    ``n_items``.
 
     ``inject_straggler(p, factor)`` multiplies partition ``p``'s observed
     times (applied once, inside ``observe``)."""
@@ -106,7 +113,7 @@ class NestedPartitionExecutor:
         n_items: int,
         n_partitions: int,
         *,
-        grid_dims: tuple,
+        grid_dims: Optional[tuple] = None,
         bucket: int = 16,
         smoothing: float = 0.5,
         rebalance_every: int = 10,
@@ -114,12 +121,11 @@ class NestedPartitionExecutor:
     ):
         if plan_cache_dir is not None:
             raise NotImplementedError("the persistent plan cache is not ported yet")
-        expected = int(np.prod(grid_dims))
-        if n_items != expected:
-            raise ValueError(f"n_items={n_items} != prod(grid_dims)={expected}")
+        if grid_dims is not None and n_items != int(np.prod(grid_dims)):
+            raise ValueError(f"n_items={n_items} != prod(grid_dims)={int(np.prod(grid_dims))}")
         self.n_items = int(n_items)
         self.n_partitions = int(n_partitions)
-        self.grid_dims = tuple(grid_dims)
+        self.grid_dims = tuple(grid_dims) if grid_dims is not None else None
         self.bucket = int(bucket)
         self.smoothing = float(smoothing)
         self.rebalance_every = int(rebalance_every)
@@ -143,6 +149,24 @@ class NestedPartitionExecutor:
     def chunk_pads(self) -> tuple:
         """Padded chunk sizes per partition."""
         return tuple(pad_to_bucket(int(c), self.bucket) for c in self.counts)
+
+    def rates(self) -> np.ndarray:
+        """Items/s per partition under the last observation (uniform before
+        any)."""
+        if self._observed is None:
+            return np.ones(self.n_partitions)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            r = self._obs_counts / self._observed
+        good = np.isfinite(r) & (r > 0)
+        if not good.any():
+            return np.ones(self.n_partitions)
+        return np.where(good, r, r[good].mean())
+
+    def predicted_makespan(self) -> float:
+        """max_p counts_p / rate_p under the current belief."""
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = self.counts / self.rates()
+        return float(np.nanmax(np.where(self.counts > 0, t, 0.0)))
 
     def inject_straggler(self, partition: int, factor: float) -> None:
         """Multiply partition's observed times by ``factor`` (test hook)."""
@@ -183,15 +207,18 @@ class NestedPartitionExecutor:
         self._resplice()
 
     def _resplice(self) -> None:
-        """Rebuild the nested partition for the current counts and run the
-        hooks."""
-        self.partition = build_nested_partition(
-            self.grid_dims,
-            self.n_partitions,
-            node_weights=np.maximum(self.counts, 0) if self.counts.sum() else None,
-            neighbors=self.neighbors,
-        )
-        self.offsets = self.partition.offsets
+        """Rebuild the nested partition (or the chunk offsets) for the
+        current counts and run the hooks."""
+        if self.grid_dims is not None:
+            self.partition = build_nested_partition(
+                self.grid_dims,
+                self.n_partitions,
+                node_weights=np.maximum(self.counts, 0) if self.counts.sum() else None,
+                neighbors=self.neighbors,
+            )
+            self.offsets = self.partition.offsets
+        else:
+            self.offsets = splice(self.n_items, np.maximum(self.counts, 1e-9))
         for hook in self._resplice_hooks:
             hook()
 
@@ -212,6 +239,19 @@ class NestedPartitionExecutor:
         )
         self.round += 1
         plan = dataclasses.replace(self.solve(w), round=self.round)
+        self.apply(plan)
+        return plan
+
+    def plan_from_report(self, report: CalibrationReport) -> Plan:
+        """Overlap-aware solve from a phase-resolved calibration: the
+        per-partition ``t_p(k) = boundary + max(interior, transfer) +
+        correction`` models (``report.time_models``) go to
+        ``solve_multiway``; the plan counts a round and is applied."""
+        fns = report.time_models(self.counts)
+        res = solve_multiway(fns, self.n_items)
+        w = np.maximum(np.asarray(res.counts, dtype=np.float64), 1e-9)
+        self.round += 1
+        plan = dataclasses.replace(self.solve(w / w.sum()), round=self.round)
         self.apply(plan)
         return plan
 
@@ -240,7 +280,7 @@ class BlockedDGEngine:
     zeroes per evaluation, and ``out[:K]`` drops it."""
 
     def __init__(self, solver, executor: NestedPartitionExecutor):
-        if tuple(executor.grid_dims) != tuple(solver.mesh.grid):
+        if executor.grid_dims is None or tuple(executor.grid_dims) != tuple(solver.mesh.grid):
             raise ValueError(
                 f"executor grid {executor.grid_dims} != solver grid {solver.mesh.grid}"
             )

@@ -14,6 +14,7 @@ from repro_torch.dg.solver import gaussian_pulse, make_two_tree_solver
 from repro_torch.kernels import ref
 from repro_torch.kernels.dg_flux import dg_flux
 from repro_torch.kernels.dg_volume import dg_volume
+from repro_torch.kernels.flash_attention import flash_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +104,52 @@ def test_flat_solver_kernels_match_plain_version(cuda):
     a, b = s.run(q0, 5), plain.run(q0, 5)
     assert dg_volume.launches == n0 + 25
     torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
+
+
+def _flash_inputs(cuda, dt, B, Hq, Hkv, Sq, Skv, D, seed):
+    rng = np.random.default_rng(seed)
+    t = lambda shape: torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                                      device=cuda).to(dt)
+    return t((B, Hq, Sq, D)), t((B, Hkv, Skv, D)), t((B, Hkv, Skv, D))
+
+
+FLASH_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}  # tests/test_kernels.py
+
+
+@pytest.mark.parametrize("S,D", [(256, 64), (192, 32), (128, 128), (200, 80), (96, 160)])
+@pytest.mark.parametrize("mode", ["causal", "encoder", "swa"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(cuda, S, D, mode, dt):
+    """The sweep of the reference's own kernel test (plus head dims 80 and
+    160 at ragged lengths), GQA 2:1 read in place."""
+    q, k, v = _flash_inputs(cuda, dt, 2, 4, 2, S, S, D, S + D)
+    kw = dict(causal=(mode != "encoder"), window=(S // 4 if mode == "swa" else None))
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == n0 + 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    tol = FLASH_TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_q_offset(cuda):
+    """Queries at positions 40.. against 104 keys (a prefix already in the
+    cache), GQA 7:1 as in qwen2-7b."""
+    q, k, v = _flash_inputs(cuda, torch.float32, 1, 7, 1, 64, 104, 128, 3)
+    got = flash_attention(q, k, v, causal=True, q_offset=40)
+    want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=40)
+    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+
+
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    q, k, v = _flash_inputs(cuda, torch.float32, 1, 2, 1, 8, 8, 48, 0)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        flash_attention(q, k, v)
+    q, k, v = _flash_inputs(cuda, torch.float64, 1, 2, 1, 8, 8, 64, 0)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q, k, v)
+    q, k, v = _flash_inputs(cuda, torch.float32, 1, 2, 1, 8, 8, 64, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, k.expand(1, 3, 8, 64).contiguous(), v.expand(1, 3, 8, 64).contiguous())
