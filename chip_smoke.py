@@ -8,10 +8,16 @@ Phases (any failure raises; the script then exits non-zero):
 1. device  — the card's name and power limit; TF32 off;
 2. build   — nvcc builds ``src/repro_torch/csrc/*.cu`` (one process per
              source, started together) into ``src/repro_torch/_build/``;
+             prints ptxas' registers and spills, and counts the HGMMA
+             (wgmma) instructions of each bf16 flash kernel in the built
+             library's SASS, which must not be 0;
 3. kernels — ``dg_volume`` and ``dg_flux`` against their plain PyTorch
              versions at the ``dg-paper`` shapes (K = F = 8192, order 7) and,
              for the volume kernel, the solver's own metrics and materials,
-             in float64 and float32, timed with CUDA events;
+             in float64 and float32.  A kernel's time is device time: calls
+             queued behind a spin kernel between one pair of CUDA events;
+             one launch between its own events, which also reads the host's
+             time to issue it, is printed beside it;
 4. flat    — ``make_two_tree_solver`` at full width (32x16x16, order 7,
              float64) for 20 steps with the kernels and with the plain
              versions; they must agree and energy must not grow;
@@ -21,9 +27,11 @@ Phases (any failure raises; the script then exits non-zero):
 6. flash   — ``flash_attention`` against its plain version at the serving
              slice's shapes (B 2, Hq 28, Hkv 4, S 2048, D 128, causal) in
              bf16 and float32, over the reference kernel test's sweep and at
-             head dims 80 and 160; timed with CUDA events beside its bound,
-             the plain version and ``scaled_dot_product_attention`` (timed
-             as a yardstick only: the port never calls it);
+             head dims 80 and 160.  At the slice the kernel and
+             ``scaled_dot_product_attention`` (a yardstick only: the port
+             never calls it) are timed in turns on the device clock, beside
+             the bound, the achieved TFLOP/s and the plain version; the
+             path each bf16 head dim takes is printed;
 7. serve   — ``qwen2-7b`` at its published widths and full depth in bf16,
              weights from seed 0, through the one-shot serve CLI's
              ``run_oneshot``: batch 4, prompt 2048, gen 32, 2 calibrated
@@ -42,6 +50,7 @@ exits 1 and prints no result.  It imports nothing of JAX.
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -58,8 +67,10 @@ from repro_torch.dg.solver import gaussian_pulse, make_two_tree_solver  # noqa: 
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.dg_flux import dg_flux  # noqa: E402
 from repro_torch.kernels.dg_volume import dg_volume  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    HEAD_DIMS, bf16_tiling, flash_attention)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch.bench_flash import device_ms  # noqa: E402
 from repro_torch.runtime.executor import BlockedDGEngine, NestedPartitionExecutor  # noqa: E402
 from repro_torch.runtime.serving import build_lm, decode_batch  # noqa: E402
 
@@ -92,9 +103,29 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip()
 
 
+def sass_count(mnemonic: str) -> dict:
+    """How many ``mnemonic`` instructions each bf16 flash kernel of the
+    built library holds, by head dim (``cuobjdump -sass``, beside nvcc)."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, dim = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_bf16_kernelILi(\d+)E", line)
+            dim = int(m.group(1)) if m else None
+            if dim is not None:
+                counts[dim] = 0
+        elif dim is not None and mnemonic in line:
+            counts[dim] += 1
+    return counts
+
+
 def time_ms(fn, reps: int = TIMING_REPS) -> float:
     """Median milliseconds of ``fn()`` over ``reps`` launches, each between
-    its own pair of CUDA events, after one warmup."""
+    its own pair of CUDA events, after one warmup.  The card may wait
+    between the first event and the work for the host to issue it, so a
+    call shorter than its own Python overhead reads that overhead."""
     fn()
     torch.cuda.synchronize()
     ts = []
@@ -162,7 +193,8 @@ def phase_kernels(gen: torch.Generator, solver) -> dict:
         n_flops = K * M**3 * (36 * M + 47)
         b, by = bound_ms(n_bytes, n_flops, dtype)
         out.setdefault("dg_volume", {})[dtype] = dict(
-            max_abs_err=err, max_err_over_scale=rel, ms=time_ms(lambda: dg_volume(*args)),
+            max_abs_err=err, max_err_over_scale=rel, ms=device_ms(lambda: dg_volume(*args)),
+            ms_event_pair=time_ms(lambda: dg_volume(*args)),
             plain_ms=time_ms(lambda: ref.dg_volume_ref(*args)), bound_ms=b, bound_by=by)
         del q, args
 
@@ -173,14 +205,15 @@ def phase_kernels(gen: torch.Generator, solver) -> dict:
         vp = torch.randn((F, 3, M, M), generator=gen, **dev)
         mats = torch.randn((F, 8), generator=gen, **dev).abs() + 0.5
         mats[: F // 3, 3] = 0.0  # acoustic minus side: the k1 = 0 branch
-        errs, ms, plain = [], [], []
+        errs, ms, ms_pair, plain = [], [], [], []
         for face in range(6):
             a = (Sm, vm, Sp, vp, mats, int(FACE_AXIS[face]), float(FACE_SIGN[face]))
             (fe, fv), (fe_r, fv_r) = dg_flux(*a), ref.dg_flux_ref(*a)
             torch.cuda.synchronize()
             errs.append(max(check_close(f"dg_flux FE face {face} {dtype}", fe, fe_r, TOL[dtype]),
                             check_close(f"dg_flux Fv face {face} {dtype}", fv, fv_r, TOL[dtype])))
-            ms.append(time_ms(lambda: dg_flux(*a)))
+            ms.append(device_ms(lambda: dg_flux(*a)))
+            ms_pair.append(time_ms(lambda: dg_flux(*a)))
             plain.append(time_ms(lambda: ref.dg_flux_ref(*a)))
         # what one launch must move: the traction jump across a face of
         # normal e_axis reads row `axis` of S (3 of 6 stored fields) and v
@@ -189,8 +222,8 @@ def phase_kernels(gen: torch.Generator, solver) -> dict:
         n_flops = F * M * M * 35 + F * 12
         b, by = bound_ms(n_bytes, n_flops, dtype)
         out.setdefault("dg_flux", {})[dtype] = dict(
-            max_abs_err=max(errs), ms=statistics.mean(ms), plain_ms=statistics.mean(plain),
-            bound_ms=b, bound_by=by)
+            max_abs_err=max(errs), ms=statistics.mean(ms), ms_event_pair=statistics.mean(ms_pair),
+            plain_ms=statistics.mean(plain), bound_ms=b, bound_by=by)
         del Sm, vm, Sp, vp, mats
         torch.cuda.empty_cache()
     for name, per in out.items():
@@ -199,7 +232,8 @@ def phase_kernels(gen: torch.Generator, solver) -> dict:
                       if "max_err_over_scale" in r else "")
             log(f"[kernels] {name} {str(dtype).split('.')[-1]}: max_abs_err={r['max_abs_err']:.3e}"
                 f"{scaled} (tol {TOL[dtype]:g}) "
-                f"kernel={r['ms']:.4f}ms plain={r['plain_ms']:.4f}ms "
+                f"kernel={r['ms']:.4f}ms (one launch between its own events: "
+                f"{r['ms_event_pair']:.4f}ms) plain={r['plain_ms']:.4f}ms "
                 f"bound={r['bound_ms']:.4f}ms ({r['bound_by']})")
     return out
 
@@ -224,14 +258,17 @@ def flash_bound(q, k, causal: bool, window) -> tuple:
         keep &= kpos > qpos - window
     n_flops = 4 * D * int(keep.sum()) * B * Hq
     n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
-    return bound_ms(n_bytes, n_flops, q.dtype)
+    return (*bound_ms(n_bytes, n_flops, q.dtype), n_flops)
 
 
 def phase_flash(gen: torch.Generator) -> dict:
     """Phase 6: the flash kernel against its plain version at the serving
     slice's shapes, over the reference kernel test's sweep, and at head dims
-    80 and 160 (ragged lengths, GQA 2:1)."""
+    80 and 160 (ragged lengths, GQA 2:1).  At the slice the kernel and
+    ``scaled_dot_product_attention`` are timed in turns (kernel, SDPA, SDPA,
+    kernel) on the device clock."""
     out = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = flash_inputs(gen, dtype, **SLICE)
         got = flash_attention(q, k, v, causal=True)
@@ -239,13 +276,16 @@ def phase_flash(gen: torch.Generator) -> dict:
         torch.cuda.synchronize()
         err = check_close(f"flash slice {dtype}", got.float(), want.float(), FLASH_TOL[dtype])
         del got, want
-        b, by = flash_bound(q, k, True, None)
+        b, by, n_flops = flash_bound(q, k, True, None)
+        kernel = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+        library = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+        turns = [device_ms(f) for f in (kernel, library, library, kernel)]
+        ms, library_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
         out[dtype] = dict(
-            max_abs_err=err, ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
-            plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True)),
-            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)),
-            bound_ms=b, bound_by=by)
+            max_abs_err=err, ms=ms, plain_ms=time_ms(lambda: ref.flash_attention_ref(
+                q, k, v, causal=True)),
+            library_ms=library_ms, bound_ms=b, bound_by=by, turns_ms=turns,
+            tflops=n_flops / ms / 1e9, bound_share=b / ms, sdpa_ratio=ms / library_ms)
         del q, k, v
         torch.cuda.empty_cache()
     sweep = [(2, 2, 2, S, D, mode) for S, D in ((256, 64), (192, 32), (128, 128))
@@ -267,7 +307,14 @@ def phase_flash(gen: torch.Generator) -> dict:
         log(f"[flash] slice {SLICE} causal {str(dtype).split('.')[-1]}: "
             f"max_abs_err={r['max_abs_err']:.3e} (tol {FLASH_TOL[dtype]:g}) "
             f"kernel={r['ms']:.4f}ms plain={r['plain_ms']:.4f}ms sdpa={r['library_ms']:.4f}ms "
-            f"bound={r['bound_ms']:.4f}ms ({r['bound_by']})")
+            f"bound={r['bound_ms']:.4f}ms ({r['bound_by']}); {r['tflops']:.1f} TFLOP/s, "
+            f"{r['bound_share'] * 100:.1f}% of the bound, {r['sdpa_ratio']:.3f}x SDPA's time "
+            f"(turns kernel/sdpa/sdpa/kernel: {', '.join(f'{t:.4f}' for t in r['turns_ms'])} ms)")
+    paths = {D: bf16_tiling(D) for D in HEAD_DIMS}
+    log("[flash] bf16 path by head dim: " + "; ".join(
+        f"D {D}: {t['path']}, padded to {t['padded_dim']}, tiles {t['block_q']}x{t['block_k']}"
+        for D, t in paths.items()))
+    out[torch.bfloat16]["paths"] = {str(D): t["path"] for D, t in paths.items()}
     log(f"[flash] sweep of {len(sweep)} shapes x 2 dtypes: max_abs_err "
         f"f32 {worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}")
     return out
@@ -328,7 +375,7 @@ def phase_serve(gen: torch.Generator) -> dict:
     prefill_ms = statistics.median(event_ms(lambda: lm.prefill(rows)) for _ in range(3))
     q, k, v = flash_inputs(gen, torch.bfloat16, len(rows), cfg.n_heads, cfg.n_kv_heads,
                            prompts.shape[1], cfg.head_dim_)
-    flash_ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    flash_ms = device_ms(lambda: flash_attention(q, k, v, causal=True))
     del q, k, v
 
     # the same rows as one batch: how many greedy tokens agree (printed, not held:
@@ -436,6 +483,10 @@ def main() -> int:
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or line.startswith("== "):
             log(f"[build] {line.strip()}")
+    hgmma = sass_count("HGMMA")
+    log(f"[build] HGMMA (wgmma) instructions in the bf16 flash kernels by head dim: {hgmma}")
+    if sorted(hgmma) != sorted(HEAD_DIMS) or min(hgmma.values()) == 0:
+        raise AssertionError(f"a bf16 flash kernel does not run on the tensor cores: {hgmma}")
 
     solver = make_two_tree_solver(grid=CONFIG.grid, order=CONFIG.order, extent=EXTENT,
                                   cp=CONFIG.cp, cs=CONFIG.cs, rho=CONFIG.rho,
@@ -522,6 +573,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:91",
         "launches": serve["launches"]["flash_attention"], "dtype": "bfloat16",
         "shape": SLICE, **flash[torch.bfloat16], "kernel_ms": flash[torch.bfloat16]["ms"],
+        "hgmma_by_head_dim": {str(D): n for D, n in hgmma.items()},
         "float32": flash[torch.float32],
     })
     log(json.dumps({"kernels": rows}))

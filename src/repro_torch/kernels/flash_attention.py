@@ -7,6 +7,10 @@ PyTorch version (``ref.flash_attention_ref``) on CPU tensors; it never falls
 back from one to the other.  ``flash_attention.launches`` counts kernel
 launches.  GQA is read in place (``Hq % Hkv == 0``); a replicated-kv head
 map is expanded by the caller.
+
+bf16 runs on the tensor cores (``wgmma`` fed by TMA, a producer and two
+consumer warpgroups, P rounded to bf16 for p.v; ``bf16_tiling`` gives the
+tiles of each head dim); float32 runs on f32 FMAs, which keep 5e-4.
 """
 
 from __future__ import annotations
@@ -22,7 +26,22 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 HEAD_DIMS = (32, 64, 80, 128, 160)  # compiled into the kernel
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_GRID_Y = 65535  # B * Hq rides the grid's y dimension
+MAX_GRID_Y = 65535  # B * Hq rides the float32 kernel's grid y dimension
+
+
+def bf16_tiling(head_dim: int) -> dict:
+    """The bf16 kernel's tiles at ``head_dim`` (``Tiles<D>`` in the source):
+    every compiled dim runs on ``wgmma`` with TMA loads, its rows padded
+    with zero columns to ``padded_dim``, a multiple of 64 (one 128-byte
+    swizzle row per 64 columns); q tiles of ``block_q`` rows (64 per
+    consumer warpgroup), kv tiles of ``block_k`` rows, 64 where 128 would
+    not leave room for q and two K/V stages in shared memory."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {head_dim} not compiled; "
+                         f"supported {HEAD_DIMS}")
+    padded = -(-head_dim // 64) * 64
+    return {"path": "wgmma+tma", "padded_dim": padded, "block_q": 128,
+            "block_k": 128 if padded <= 128 else 64}
 
 
 def flash_attention(
@@ -59,7 +78,7 @@ def flash_attention(
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset must be >= 0, got {q_offset}")
-    if B * Hq > MAX_GRID_Y:
+    if q.dtype == torch.float32 and B * Hq > MAX_GRID_Y:
         raise ValueError(f"flash_attention: B * Hq = {B * Hq} exceeds {MAX_GRID_Y}")
     out = torch.empty_like(q)
     if q.numel() == 0:

@@ -1,7 +1,10 @@
 """The port's attention against the JAX package on the same numpy inputs:
 the flash kernel's plain version against the Pallas kernel (interpret mode),
-the model-level ``flash_attention`` with ``q_offset`` and a replicated-kv
-head map, and the decode path with per-row cache lengths."""
+the rounding the bf16 kernel adds (P in bf16 before p.v), the model-level
+``flash_attention`` with ``q_offset`` and a replicated-kv head map, and the
+decode path with per-row cache lengths."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +15,7 @@ from repro.kernels import ops as jops
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.models import attention as jattn
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import HEAD_DIMS, bf16_tiling
 from repro_torch.kernels.flash_attention import flash_attention as flash_kernel
 from repro_torch.models import attention as tattn
 
@@ -77,6 +81,81 @@ def test_flash_ref_is_not_the_unmasked_function():
     assert (good - ref.flash_attention_ref(q, k, v, causal=False)).abs().max() > 0.1
     swapped = ref.flash_attention_ref(q[:, [0, 2, 1, 3]], k, v, causal=True)[:, [0, 2, 1, 3]]
     assert (good - swapped).abs().max() > 0.1
+
+
+def _flash_bf16_p(q, k, v, *, causal, window, block_k):
+    """The plain version as the bf16 kernel rounds it: an online softmax in
+    float32 over kv tiles of ``block_k`` rows, each tile's P rounded to bf16
+    before p.v (tensor cores: exact products, float32 sums), the row sum l
+    taken over the unrounded P."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(Hq // Hkv, dim=1)
+    vf = v.float().repeat_interleave(Hq // Hkv, dim=1)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) / math.sqrt(D)
+    qpos = torch.arange(Sq)[:, None]
+    kpos = torch.arange(Skv)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, ref.MASKED)
+    m = torch.full((B, Hq, Sq, 1), ref.MASKED)
+    l = torch.zeros((B, Hq, Sq, 1))
+    acc = torch.zeros((B, Hq, Sq, D))
+    for k0 in range(0, Skv, block_k):
+        st = s[..., k0:k0 + block_k]
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.bfloat16().float(), vf[..., k0:k0 + block_k, :])
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,blocks", [
+    (2, 2, 2, 256, 64, (64, 64)), (2, 2, 2, 192, 32, (64, 32)), (2, 2, 2, 128, 128, (128, 128)),
+    (1, 7, 1, 160, 32, (80, 80)),  # GQA 7:1, as qwen2-7b's heads
+])
+@pytest.mark.parametrize("mode", ["causal", "encoder", "swa"])
+def test_bf16_p_rounding_stays_inside_the_tolerance(B, Hq, Hkv, S, D, blocks, mode):
+    """The bf16 kernel rounds P to bf16 for p.v, where the Pallas kernel
+    keeps it in float32: emulated at the kernel's kv tile, the result stays
+    within the reference's bf16 tolerance of the Pallas kernel, at the
+    reference sweep's shapes and at a narrow GQA 7:1 shape."""
+    rng = np.random.default_rng(S + D + Hq)
+    q = rng.standard_normal((B, Hq, S, D), np.float32)
+    k = rng.standard_normal((B, Hkv, S, D), np.float32)
+    v = rng.standard_normal((B, Hkv, S, D), np.float32)
+    kw = dict(causal=(mode != "encoder"), window=(S // 4 if mode == "swa" else None))
+    g = Hq // Hkv
+    jq, _ = _both(q, "bfloat16")
+    (jk, _), (jv, _) = (_both(np.repeat(x, g, axis=1), "bfloat16") for x in (k, v))
+    want = flash_attention_pallas(jq, jk, jv, block_q=blocks[0], block_k=blocks[1],
+                                  interpret=True, **kw)
+    t = lambda x: torch.as_tensor(x).bfloat16()
+    got = _flash_bf16_p(t(q), t(k), t(v), block_k=bf16_tiling(D)["block_k"], **kw)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_bf16_tiling_by_head_dim(D):
+    """Every compiled head dim takes the wgmma + TMA path; its padded rows
+    are whole 64-column swizzle rows, and q plus two K/V stages (and the
+    1 KB alignment slack and the barriers) fit in a block's 227 KB."""
+    t = bf16_tiling(D)
+    assert t["path"] == "wgmma+tma"
+    assert t["padded_dim"] % 64 == 0 and D <= t["padded_dim"] < D + 64
+    assert t["block_q"] == 128 and t["block_k"] in (64, 128)
+    row = t["padded_dim"] * 2  # bytes of a padded bf16 row
+    smem = 1024 + t["block_q"] * row + 2 * 2 * t["block_k"] * row + 8 * 10
+    assert smem <= 232448
+    assert t["block_k"] == 128 or 1024 + t["block_q"] * row + 4 * 128 * row > 232448
+    with pytest.raises(ValueError, match="head_dim 48"):
+        bf16_tiling(48)
 
 
 @pytest.mark.parametrize("q_offset,kv_map", [(0, None), (32, None), (16, (0, 0, 1, 1, 0, 0))])

@@ -14,7 +14,7 @@ from repro_torch.dg.solver import gaussian_pulse, make_two_tree_solver
 from repro_torch.kernels import ref
 from repro_torch.kernels.dg_flux import dg_flux
 from repro_torch.kernels.dg_volume import dg_volume
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import HEAD_DIMS, bf16_tiling, flash_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -139,6 +139,51 @@ def test_flash_attention_kernel_q_offset(cuda):
     got = flash_attention(q, k, v, causal=True, q_offset=40)
     want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=40)
     torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+
+
+def _bf16_case(cuda, B, Hq, Hkv, Sq, Skv, D, seed, **kw):
+    """One bf16 launch (the wgmma kernel) against the plain version."""
+    q, k, v = _flash_inputs(cuda, torch.bfloat16, B, Hq, Hkv, Sq, Skv, D, seed)
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == n0 + 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_bf16_at_the_slice(cuda):
+    """qwen2-7b's attention on one sub-batch: B 2, Hq 28, Hkv 4, S 2048,
+    D 128, causal."""
+    _bf16_case(cuda, 2, 28, 4, 2048, 2048, 128, 11, causal=True)
+
+
+def test_flash_bf16_q_offset(cuda):
+    """300 queries after a 1748-token prefix (Skv 2048), GQA 7:1."""
+    _bf16_case(cuda, 1, 7, 1, 300, 2048, 128, 12, causal=True, q_offset=1748)
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_ragged_lengths(cuda, D, causal):
+    """Sq 200 and Skv 333, neither a multiple of a tile, at every compiled
+    head dim (causal: the queries follow a 133-token prefix)."""
+    _bf16_case(cuda, 2, 4, 2, 200, 333, D, D, causal=causal, q_offset=133 if causal else 0)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bf16_window_edge_inside_a_tile(cuda, D):
+    """A window of 200 keys: its edge falls inside the 128-row kv tiles."""
+    _bf16_case(cuda, 1, 4, 2, 512, 512, D, 5, causal=True, window=200)
+
+
+def test_flash_bf16_first_visited_tile_fully_masked(cuda):
+    """Window 16: q tile 1 (rows 128..255) starts at kv tile 0, which is
+    fully masked for its rows 143..255; the next tile's rescale must wipe
+    what it left exactly."""
+    window = 16
+    assert (128 - window + 1) // bf16_tiling(128)["block_k"] == 0
+    _bf16_case(cuda, 1, 2, 1, 512, 512, 128, 6, causal=True, window=window)
 
 
 def test_flash_attention_refuses_what_it_does_not_take(cuda):
